@@ -1,10 +1,11 @@
-"""TPU-native CraftingWorld: a from-scratch JAX re-design of
+"""Batched CraftingWorld: a from-scratch JAX re-design of
 `lauradarcy/gym-craftingworld`.
 
 The entire env — state, step, reset, goal imagination, rendering — is a pure
 batched array program: thousands of env instances live as packed int8/int32
 device arrays and step in lockstep under ``jit``/``vmap``/``lax.scan``, shard
-across TPU meshes via ``jax.sharding``, and feed learners without leaving HBM.
+across device meshes via ``jax.sharding``, and feed learners without leaving
+device memory.
 
 Public surface:
   - :mod:`gym_craftingworld_tpu.core`     — packed state, step, reset, rollouts

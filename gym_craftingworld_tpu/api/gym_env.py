@@ -1,4 +1,4 @@
-"""Classic-Gym-compatible env façades over the batched TPU core.
+"""Classic-Gym-compatible env façades over the batched device core.
 
 Four variants mirroring the reference classes and their observation encodings:
 

@@ -1,4 +1,4 @@
-"""Gymnasium-style vector environment over the batched TPU core.
+"""Gymnasium-style vector environment over the batched device core.
 
 Modern RL stacks consume `gymnasium.vector.VectorEnv`-shaped interfaces; this
 adapter exposes the whole device-resident batch through that protocol —
@@ -93,8 +93,8 @@ class CraftingWorldVectorEnv:
     # -- observation builders ---------------------------------------------
 
     def _obs(self):
-        from gym_craftingworld_tpu.models.actor_critic import obs_features
         from gym_craftingworld_tpu.render import raster
+        from gym_craftingworld_tpu.render.features import obs_features
 
         st = self._state
         if self.obs_mode == "onehot":

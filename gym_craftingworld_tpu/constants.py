@@ -1,4 +1,4 @@
-"""World constants for the TPU-native CraftingWorld engine.
+"""World constants for the batched CraftingWorld engine.
 
 Mirrors the world definition of the reference implementation
 (`/root/reference/gym_craftingworld/envs/craftingworld_ray.py:20-46`), but uses a
@@ -9,7 +9,7 @@ Mirrors the world definition of the reference implementation
   - holding code (int32):    0 = empty-handed, 1..3 = PICKUPABLE[code-1]
   - init-cell code (int8):   like object code, plus 9 = "agent started here"
 
-The packed form is what lives on TPU: an ``int8[B, H, W]`` grid plus a couple of
+The packed form is what lives on the device: an ``int8[B, H, W]`` grid plus a couple of
 small per-env scalars, so tens of thousands of env instances step in lockstep
 under ``jit``/``vmap`` with no per-cell Python.
 """

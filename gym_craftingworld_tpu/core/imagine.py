@@ -45,9 +45,9 @@ def _cond_set(cond, flat, idx, val):
     """flat[idx] <- val, only when ``cond``; fixed-shape either way.
 
     A dense compare-select rather than ``flat.at[idx].set``: data-dependent
-    scatters inside large vmapped programs miscompile on XLA:TPU at big batch
-    sizes (see core/step.py), and the dense form is the same few hundred VPU
-    lanes either way.
+    scatters inside large vmapped programs have miscompiled at big batch
+    sizes (see core/step.py), and the dense form is a few hundred elements
+    either way.
     """
     hit = jnp.arange(flat.shape[0], dtype=jnp.int32) == idx
     return jnp.where(cond & hit, val, flat)

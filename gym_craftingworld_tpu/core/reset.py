@@ -41,7 +41,7 @@ def sample_desired(cfg: EnvConfig, key: jax.Array) -> jax.Array:
     sel = jnp.asarray(cfg.selected_task_indices, jnp.int32)[perm]
     chosen = jnp.arange(n_sel) < k
     # Dense compare-select instead of a data-dependent scatter (core/step.py
-    # documents the XLA:TPU batched-scatter miscompile this family avoids).
+    # documents the batched-scatter miscompile this family avoids).
     hit = (sel[None, :] == jnp.arange(C.N_TASKS, dtype=jnp.int32)[:, None]) & chosen[None, :]
     return jnp.any(hit, axis=1).astype(jnp.int8)
 

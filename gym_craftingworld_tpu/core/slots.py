@@ -1,4 +1,4 @@
-"""Entity-slot state layout — the TPU speed-of-light stepping path.
+"""Entity-slot state layout — the speed-of-light stepping path.
 
 The grid layout (core/step.py) does per-step work proportional to H*W per env
 (gathers/scatters over an int8[B,H,W] grid). But a CraftingWorld world never
@@ -11,8 +11,8 @@ whole world state compresses to 8 entity slots per env:
   slot_stat int32[B, 8]   0 = on grid, 1 = held by agent, 2 = removed
 
 Every step is then a handful of [B, 8] comparisons and selects — no gather, no
-scatter, no H*W-proportional work — which XLA fuses into a few VPU passes over
-a ~1 MB working set. Semantics are bit-identical to the grid path (verified
+scatter, no H*W-proportional work — which XLA fuses into a few elementwise
+passes over a ~1 MB working set. Semantics are bit-identical to the grid path (verified
 exhaustively in test_slots_equivalence.py); observations/renders reconstruct
 the grid on demand.
 

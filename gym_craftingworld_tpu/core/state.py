@@ -4,7 +4,7 @@ The reference stores each cell as a 12-wide one-hot vector
 (`craftingworld_ray.py:94-98`): channels 0-7 object, 8 agent, 9-11 held item
 (held item lives *in the agent's cell*, craftingworld_ray.py:407-408).
 
-Here the same information is packed for TPU residency:
+Here the same information is packed for device residency:
 
   objects  int8[B, H, W]   0 empty, 1..8 object code (= reference channel + 1)
   agent    int32[B, 2]     (row, col)
@@ -16,16 +16,18 @@ arrays, so the whole batch shards trivially along axis 0 of every leaf.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from gym_craftingworld_tpu import constants as C
 from gym_craftingworld_tpu.config import EnvConfig
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class EnvState:
     """Batched CraftingWorld state. All leaves have leading batch axis B."""
 
@@ -54,6 +56,9 @@ class EnvState:
 
     # Per-env PRNG key (used by auto-reset rollouts).
     rng: jax.Array  # uint32[B, 2] (jax key data)
+
+    def replace(self, **updates) -> "EnvState":
+        return dataclasses.replace(self, **updates)
 
     @property
     def batch_size(self) -> int:

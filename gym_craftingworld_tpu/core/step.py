@@ -57,13 +57,13 @@ def _step_one(cfg: EnvConfig, state: EnvState, action: jax.Array):
 
     Deliberately free of data-dependent gathers/scatters: every grid read is
     a one-hot masked reduction and every grid write a dense compare-select
-    over the H x W board. Besides being the natural TPU dataflow (the VPU
-    streams the whole 21x21 grid faster than it serves a scattered cell),
-    this sidesteps an XLA:TPU miscompile observed on v5e where the fused
-    per-env double scatter of the original formulation silently dropped the
+    over the H x W board. Besides streaming the whole 21x21 grid in
+    elementwise passes, this sidesteps a compiler bug seen on the
+    accelerator this engine was first built for, where the fused per-env
+    double scatter of the original formulation silently dropped the
     object-effect write at batch >= ~1024 (full-batch vs split-batch stepping
-    diverged; CPU agreed with split). tests_tpu/test_batch_consistency.py
-    carries the regression.
+    diverged; CPU agreed with split). chip_smoke.py phase 1 checks the GPU's
+    reset and rollout against the CPU's, bit for bit, at B = 2048.
     """
     H, W = cfg.height, cfg.width
     objects, agent, holding = state.objects, state.agent, state.holding

@@ -12,7 +12,7 @@ framework-native model family:
     vectors compose additively *by construction*:
     ``plan({A, B}) = plan({A}) + plan({B})``, and finishing A while pursuing
     {A, B} leaves exactly the vector that conditions the single-task-B policy;
-  * the torso is the same bf16 MXU-tiled MLP as the flagship actor-critic,
+  * the torso is the same bf16 MLP as the flagship actor-critic,
     so the family drops into the BC trainer (train/bc.py) and the PPO
     learner unchanged.
 

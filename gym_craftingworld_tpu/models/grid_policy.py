@@ -12,7 +12,7 @@ that in natural form:
     init objects + init agent mark (9, the INIT_OBS_VECTOR the reference's
     task eval reads), and broadcast goal/holding scalars (31) so the conv
     stack can condition obstacle semantics on what is held and wanted;
-  * a conv torso (3x3 stacks run as MXU matmuls in bf16) for local obstacle
+  * a conv torso (3x3 stacks in bf16) for local obstacle
     geometry, flattened into dense layers for global route/target reasoning;
   * the same planes are built two ways — from stored snapshot columns
     (train/demos.py, minibatch time) and from a live EnvState (eval/PPO

@@ -4,7 +4,7 @@ Third policy family alongside the MLP (one-hot features) and CNN (pixel
 renders): each grid cell is a token — its 12-channel one-hot embedded with a
 learned 2-D positional code — and a goal token carrying the desired/achieved
 bits attends over the board through a small pre-LN transformer. All matmuls
-are bf16 and batched over envs, so the whole forward is MXU work; there is no
+are bf16 and batched over envs, so the whole forward is matmul work; there is no
 pixel render in the loop at all.
 
 The reference has no learned models (SURVEY §5: nothing to scale); this

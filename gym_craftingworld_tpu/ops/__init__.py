@@ -1,10 +1,8 @@
-from gym_craftingworld_tpu.ops.fused_rollout import (
-    fused_rollout,
-    fused_rollout_actions,
-)
 from gym_craftingworld_tpu.ops.packed_fused import (
-    fused_rollout_packed,
+    action_stream,
     fused_rollout_packed_bench,
+    rollout_layout,
+    rollout_random_bench,
 )
 from gym_craftingworld_tpu.ops.packed_rollout import (
     rollout_p,
@@ -13,11 +11,11 @@ from gym_craftingworld_tpu.ops.packed_rollout import (
 )
 
 __all__ = [
-    "fused_rollout",
-    "fused_rollout_actions",
-    "fused_rollout_packed",
+    "action_stream",
     "fused_rollout_packed_bench",
+    "rollout_layout",
     "rollout_p",
     "rollout_p_bench",
     "rollout_p_random",
+    "rollout_random_bench",
 ]

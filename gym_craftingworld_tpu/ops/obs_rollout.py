@@ -17,8 +17,8 @@ consumes observations as features inside the collect scan.
 
 Grid codes are reconstructed from slots without gathers or scatters: each of
 the 8 slot position keys is compared against the cell-index iota and the
-matching slot type is select-summed in (TPU scatters serialise per element;
-compares/selects vectorise — same design as render/raster.py's palette).
+matching slot type is select-summed in (compares/selects instead of
+scatters — same design as render/raster.py's palette).
 """
 
 from __future__ import annotations

@@ -1,229 +1,281 @@
-"""Fused Pallas rollout kernel over the packed-key int16 layout.
+"""Whole-rollout GPU kernel for the packed engine (Pallas, Triton route).
 
-Combines the two fastest designs in ops/:
+The XLA packed scan (``packed_rollout.rollout_p_bench``) launches several
+small kernels per step and writes its carry back to device memory every step.
+At 16k envs one step is only a few microseconds of arithmetic, so the scan is
+bound by launches and the loop. This kernel runs all T steps in one launch:
+each program owns a 1-D block of ``BLOCK`` envs, one env per thread, and keeps
+every env's state in registers for the whole rollout.
 
-* the **packed int16 algebra** of ops/packed_rollout.py — one key per slot,
-  scalar effect codes, 9-bit task masks (the minimum-op step; see that
-  module's docstring for the derivation from the reference semantics,
-  craftingworld_ray.py:301-440,646-703);
-* the **fused whole-rollout kernel** of ops/fused_rollout_t.py — all T steps
-  inside one `pallas_call`, state resident in VMEM, actions from the in-kernel
-  TPU PRNG — so the scan carry never round-trips HBM.
+* **Step body**: ``packed_rollout._step_p_unrolled``, the same algebra as the
+  scan, in int32. Each ``[8, B]`` slot array enters as 8 separate ``[BLOCK]``
+  rows, because Triton cannot slice a register tensor.
+* **Actions**: a counter-based 32-bit hash of (seed, global env index, step)
+  (:func:`action_stream`), computed in the kernel. The same plain-``jnp``
+  function is the reference stream that tests and ``chip_smoke.py`` feed the
+  scan. The stream depends on the global env index, so it does not depend on
+  the block size, and a shard passes its first env index as ``env_offset``.
+* **Output**: the final state and one int32 reward sum per env, so no
+  ``[T, B]`` array is written.
 
-Layout insight over fused_rollout_t: that kernel keeps per-env scalars as
-``[1, B]`` rows, which occupy one sublane of every (8, 128) VPU tile — 7/8 of
-the vector unit idles on scalar ops (and the packed step is *mostly* scalar
-ops). Here the batch axis itself is laid out 2-D as ``(R, 128)``
-(``R = block // 128``), so every scalar op fills whole tiles, and slot arrays
-are ``[8, R, 128]`` with slot reductions over the leading axis.
-
-The step body is ``packed_rollout._step_p_unrolled`` — the slot-unrolled
-variant of the packed step (each slot's statically-known transition structure
-applied, ~30% fewer vector ops; measured 1.33x on v5e). It is proven
-bit-identical to ``_step_p`` (tests/test_packed_rollout.py) and the compiled
-kernel bit-exact vs the packed scan on-chip (tests_tpu/test_tpu_engine.py);
-``CW_PACKED_FUSED_STEP=classic`` selects the original step body.
-
-The bench variant accumulates the reward checksum in VMEM and outputs only
-the final state + one int32 per env — unlike fused_rollout_t's ``[T, B]``
-reward/done outputs, whose HBM writes (2 GB at T=B=16k) made long-T
-measurement impossible.
+A batch that is not a multiple of the block is padded with copies of its last
+env and sliced back. ``interpret=True`` runs the kernel in the Pallas
+interpreter on any backend (the CPU tests). Otherwise it is compiled for the
+GPU, and asking for that on another backend raises.
 """
 
 from __future__ import annotations
 
-import os as _os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
+from gym_craftingworld_tpu import constants as C
 from gym_craftingworld_tpu.config import EnvConfig
 from gym_craftingworld_tpu.core.slots import SlotState
 from gym_craftingworld_tpu.ops.packed_rollout import (
     PackedState,
-    _step_p,
     _step_p_unrolled,
     pack,
+    rollout_p_bench,
     unpack,
 )
 from gym_craftingworld_tpu.ops.transposed_rollout import transpose_in, transpose_out
 
-i16 = jnp.int16
-# element type inside the kernel: v5e Mosaic cannot lower packed-int16
-# vector compares, and the fused kernel's state never touches HBM mid-rollout
-# anyway, so the int16 carry-traffic argument doesn't apply in here
-KDT = jnp.int32
+KDT = jnp.int32  # element type inside the kernel: one register per value
+# Envs per program, one per thread (PERF.md, "Kernel decisions": block sweep
+# at 16k envs on the H100).
+BLOCK = 128
+NUM_WARPS = BLOCK // 32
 
-# Best measured block on v5e (sweep at B=16k, T=16k: 1024→9.1e9, 2048→11.8e9,
-# 4096→10.3e9, 8192→8.6e9, 16384→7.6e9 env-steps/s); 512 is below the 8-sublane
-# tile minimum.
-BLOCK = int(_os.environ.get("CW_PACKED_FUSED_BLOCK", 2048))
-# step body: the slot-unrolled variant cuts ~30% of the vector ops by
-# exploiting each slot's statically-known transition structure; bit-identical
-# to "classic" _step_p (tests/test_packed_rollout.py, tests_tpu/ on-chip)
-_STEP = {"unrolled": _step_p_unrolled, "classic": _step_p}[
-    _os.environ.get("CW_PACKED_FUSED_STEP", "unrolled")
-]
-LANES = 128
-SUBLANES = 8
-_VMEM_LIMIT = 100 * 1024 * 1024
-
-# PackedState field partition: slot arrays [8, B], scalars [B]; the *_key /
-# desired fields marked const never change during a rollout.
+# PackedState field partition: slot arrays [8, B], scalars [B]; the const
+# fields never change during a rollout.
 _SLOT_FIELDS = ("slot_key", "slot_type", "init_key", "init_type")
 _CONST_FIELDS = ("init_key", "init_type", "desired", "init_agent_key")
-_OUT_FIELDS = tuple(
-    f for f in PackedState._fields if f not in _CONST_FIELDS
-)  # 9 mutable fields, kernel outputs in this order
+_OUT_FIELDS = tuple(f for f in PackedState._fields if f not in _CONST_FIELDS)
 
 
-def _fold(x):
-    """[..., B] → [..., B // 128, 128] (batch axis as full VPU tiles)."""
-    return x.reshape(*x.shape[:-1], x.shape[-1] // LANES, LANES)
+# ---------------------------------------------------------------------------
+# the action stream: one plain-jnp definition, used in and out of the kernel
+# ---------------------------------------------------------------------------
+
+_GOLDEN = np.uint32(0x9E3779B9)
+_STEP_SALT = np.uint32(0x632BE5AB)
 
 
-def _unfold(x):
-    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+def _mix32(x):
+    """The "lowbias32" integer finaliser (C. Wellons): a uint32 bijection."""
+    x = x ^ (x >> 16)
+    x = x * np.uint32(0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = x * np.uint32(0x846CA68B)
+    return x ^ (x >> 16)
 
 
-def _state_from_refs(refs):
-    return PackedState(**{f: r[:] for f, r in zip(PackedState._fields, refs)})
+def env_keys(seed, env):
+    """Per-env stream keys for global env indices ``env`` (int)."""
+    s = _mix32(jnp.asarray(seed).astype(jnp.uint32) ^ _GOLDEN)
+    return _mix32(jnp.asarray(env).astype(jnp.uint32) * _GOLDEN + s)
 
 
-def _write_out(out_refs, s: PackedState):
-    for ref, f in zip(out_refs, _OUT_FIELDS):
-        ref[:] = getattr(s, f)
+def step_actions(keys, step):
+    """Actions int32 in [0, 6) of envs with stream ``keys`` at ``step``."""
+    s = _mix32(jnp.asarray(step).astype(jnp.uint32) ^ _STEP_SALT)
+    h = _mix32(keys ^ s)
+    return jax.lax.rem(h, np.uint32(C.N_ACTIONS)).astype(jnp.int32)
 
 
-def _bench_kernel(cfg: EnvConfig, num_steps: int, seed_ref, *refs):
-    """T in-kernel-PRNG steps; outputs final state + per-env reward sum."""
-    in_refs, out_refs = refs[:13], refs[13:]
-    pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-    state = _state_from_refs(in_refs)
-    shape = state.agent_r.shape  # (R, 128)
+def action_stream(seed, env, step):
+    """The kernel's action for (seed, global env index, step), broadcasting.
 
-    def body(_, carry):
-        state, acc = carry
-        bits = pltpu.prng_random_bits(shape)
-        action = (bits % jnp.uint32(6)).astype(KDT)
-        state, res = _STEP(cfg, state, action, dtype=KDT)
-        return state, acc + res.reward
+    ``hash % 6`` has a modulo bias of ~1e-9 per action, far below any test's
+    resolution.
+    """
+    return step_actions(env_keys(seed, env), step)
 
-    state, acc = jax.lax.fori_loop(
-        0, num_steps, body, (state, jnp.zeros(shape, jnp.int32))
+
+def reference_actions(seed, batch: int, num_steps: int, env_offset=0):
+    """The stream the kernel draws for envs ``env_offset + [0, batch)``,
+    as int32[num_steps, batch]."""
+    env = env_offset + jnp.arange(batch, dtype=jnp.int32)
+    steps = jnp.arange(num_steps, dtype=jnp.int32)
+    return action_stream(seed, env[None, :], steps[:, None])
+
+
+# ---------------------------------------------------------------------------
+# backend switch
+# ---------------------------------------------------------------------------
+
+
+def rollout_layout(backend: str | None = None) -> str:
+    """The fastest random-rollout engine on ``backend`` (default: JAX's).
+
+    ``"packed_fused"`` (this kernel) on a GPU, ``"packed"`` (the XLA scan)
+    elsewhere. This is the one place that makes that choice.
+    """
+    backend = backend or jax.default_backend()
+    return "packed_fused" if backend == "gpu" else "packed"
+
+
+def rollout_random_bench(cfg: EnvConfig, slots: SlotState, seed,
+                         num_steps: int, layout: str | None = None):
+    """T random steps with the engine :func:`rollout_layout` picks.
+
+    Returns (SlotState, int32 reward checksum). Both engines step uniform
+    random actions; only the kernel's are the :func:`action_stream` hash.
+    """
+    layout = layout or rollout_layout()
+    if layout == "packed_fused":
+        return fused_rollout_packed_bench(cfg, slots, seed, num_steps)
+    if layout == "packed":
+        return rollout_p_bench(cfg, slots, jax.random.PRNGKey(seed), num_steps)
+    raise ValueError(f"unknown rollout layout {layout!r}")
+
+
+def _require_compiled_backend(interpret: bool):
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the compiled packed rollout kernel needs a GPU; pass "
+            "interpret=True to run it in the Pallas interpreter"
+        )
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def _block_envs(meta_ref, block: int):
+    """Global env indices of this program's block: offset + pid*block + i."""
+    first = meta_ref[1] + pl.program_id(0) * block
+    return first + jax.lax.broadcasted_iota(jnp.int32, (block,), 0)
+
+
+def _load(ref, field):
+    if field in _SLOT_FIELDS:
+        return tuple(ref[i, :] for i in range(C.N_OBJECTS))
+    return ref[...]
+
+
+def _store(ref, field, value):
+    if field in _SLOT_FIELDS:
+        for i in range(C.N_OBJECTS):
+            ref[i, :] = value[i]
+    else:
+        ref[...] = value
+
+
+def _bench_kernel(cfg: EnvConfig, num_steps: int, block: int, meta_ref,
+                  *refs):
+    """T hashed-action steps; outputs the mutable fields + per-env reward sum."""
+    n_in = len(PackedState._fields)
+    in_refs, out_refs = refs[:n_in], refs[n_in:]
+    state = {f: _load(r, f) for f, r in zip(PackedState._fields, in_refs)}
+    const = {f: state[f] for f in _CONST_FIELDS}
+    keys = env_keys(meta_ref[0], _block_envs(meta_ref, block))
+
+    def body(t, carry):
+        mut, acc = carry
+        s, res = _step_p_unrolled(cfg, PackedState(**mut, **const),
+                                  step_actions(keys, t), dtype=KDT)
+        return {f: getattr(s, f) for f in _OUT_FIELDS}, acc + res.reward
+
+    mut, acc = jax.lax.fori_loop(
+        0, num_steps, body,
+        ({f: state[f] for f in _OUT_FIELDS}, jnp.zeros((block,), jnp.int32)),
     )
-    _write_out(out_refs[:-1], state)
-    out_refs[-1][:] = acc
+    for ref, f in zip(out_refs, _OUT_FIELDS):
+        _store(ref, f, mut[f])
+    out_refs[-1][...] = acc
 
 
-def _actions_kernel(cfg: EnvConfig, num_steps: int, *refs):
-    """Steps a given [T, R, 128] action block; outputs rewards/dones too."""
-    in_refs, out_refs = refs[: 13 + 1], refs[14:]
-    actions_ref = in_refs[-1]
-    state = _state_from_refs(in_refs[:13])
-    o_reward, o_done = out_refs[-2], out_refs[-1]
+def _stream_kernel(num_steps: int, block: int, meta_ref, o_ref):
+    keys = env_keys(meta_ref[0], _block_envs(meta_ref, block))
 
-    def body(t, state):
-        state, res = _STEP(cfg, state, actions_ref[t], dtype=KDT)
-        o_reward[t] = res.reward
-        o_done[t] = res.done.astype(KDT)  # Mosaic cannot store i1 vectors
-        return state
+    def body(t, carry):
+        o_ref[t, :] = step_actions(keys, t)
+        return carry
 
-    state = jax.lax.fori_loop(0, num_steps, body, state)
-    _write_out(out_refs[:-2], state)
+    jax.lax.fori_loop(0, num_steps, body, 0)
 
 
-def _specs(cfg: EnvConfig, B: int, block: int):
-    """(in_specs for PackedState, out_specs/out_shapes for _OUT_FIELDS)."""
-    R = block // LANES
-
-    def spec(lead):
-        if lead is None:  # scalar field [B//128, 128]
-            return pl.BlockSpec((R, LANES), lambda i, *a: (i, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.BlockSpec((lead, R, LANES), lambda i, *a: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-
-    in_specs = [spec(8 if f in _SLOT_FIELDS else None)
-                for f in PackedState._fields]
-    out_specs = [spec(8 if f in _SLOT_FIELDS else None) for f in _OUT_FIELDS]
-    sds = jax.ShapeDtypeStruct
-    out_shape = [
-        sds((8, B // LANES, LANES) if f in _SLOT_FIELDS else (B // LANES, LANES),
-            KDT)
-        for f in _OUT_FIELDS
-    ]
-    return in_specs, out_specs, out_shape
+def _spec(field: str | None, block: int, lead: int | None = None):
+    if field in _SLOT_FIELDS or lead is not None:
+        return pl.BlockSpec((lead or C.N_OBJECTS, block), lambda i: (0, i))
+    return pl.BlockSpec((block,), lambda i: (i,))
 
 
-def _folded_inputs(p: PackedState):
-    return [_fold(getattr(p, f).astype(KDT)) for f in PackedState._fields]
+def _meta(seed, env_offset):
+    return jnp.stack([jnp.asarray(seed, jnp.int32),
+                      jnp.asarray(env_offset, jnp.int32)])
 
 
-def _rebuild(p: PackedState, outs):
-    new = {f: _unfold(o).astype(i16) for f, o in zip(_OUT_FIELDS, outs)}
-    return p._replace(**new)
+def _call(kernel, n_blocks: int, block: int, interpret: bool, in_specs,
+          out_specs, out_shape):
+    _require_compiled_backend(interpret)
+    return pl.pallas_call(
+        kernel,
+        grid=(n_blocks,),
+        in_specs=[pl.BlockSpec((2,), lambda i: (0,))] + in_specs,
+        out_specs=out_specs,
+        out_shape=out_shape,
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=max(1, block // 32), num_stages=1),  # one env/thread
+        interpret=interpret,
+        name="packed_rollout",
+    )
 
 
-def _block_size(B: int, block: int | None = None) -> int:
-    # Compiled Mosaic additionally requires the row block (block // 128) to be
-    # a multiple of 8 sublanes unless it spans the whole array (block == B);
-    # interpret mode (tests) has no such constraint, so only the lane
-    # divisibility is enforced here and Mosaic's own error covers the rest.
-    block = min(B, block or BLOCK)
-    if B % block or block % LANES:
-        raise ValueError(
-            f"batch {B} must be a multiple of min(B, {block}) and of {LANES}")
-    return block
+def _padded(B: int, block: int | None):
+    block = block or BLOCK
+    if block & (block - 1):
+        raise ValueError(f"block {block} must be a power of two")
+    return block, -(-B // block) * block
 
 
-def _interp(interpret: bool):
-    """pallas_call interpret= argument for the TPU interpreter (tests/dryrun)."""
-    return pltpu.InterpretParams() if interpret else False
+def _pad(x, Bp: int):
+    B = x.shape[-1]
+    if B == Bp:
+        return x
+    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, Bp - B)], mode="edge")
 
 
 @partial(jax.jit, static_argnums=(0, 3),
          static_argnames=("interpret", "block"))
 def fused_rollout_packed_bench(cfg: EnvConfig, slots: SlotState, seed,
-                               num_steps: int, *, interpret: bool = False,
+                               num_steps: int, *, env_offset=0,
+                               interpret: bool = False,
                                block: int | None = None):
-    """T random steps fully in VMEM; returns (SlotState, int32 checksum).
+    """T steps of :func:`action_stream` actions in one kernel launch.
 
-    Action stream comes from the per-core TPU PRNG (seeded per block), so it
-    is *uniform over the 6 actions* but not bit-identical to jax.random —
-    matching the contract of ops/fused_rollout_t.py. ``interpret`` runs the
-    kernel under the TPU interpreter (off-silicon tests/dryruns); ``block``
-    overrides the VMEM batch-block size (default module BLOCK).
+    Returns (SlotState, int32 checksum: the sum of every env's rewards).
+    Bit-identical to ``rollout_p`` fed ``reference_actions(seed, B, T,
+    env_offset)``. ``block`` overrides the envs per program (default
+    ``BLOCK``; always one env per thread).
     """
     B = slots.agent.shape[0]
-    block = _block_size(B, block)
+    block, Bp = _padded(B, block)
     ts = transpose_in(slots)
     p = pack(cfg, ts)
     init_rows = (ts.init_pos_r, ts.init_pos_c, ts.init_type,
                  ts.init_agent_r, ts.init_agent_c)
-
-    in_specs, out_specs, out_shape = _specs(cfg, B, block)
-    R = block // LANES
-    acc_spec = pl.BlockSpec((R, LANES), lambda i, *a: (i, 0),
-                            memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B // block,),
-        in_specs=in_specs,
-        out_specs=out_specs + [acc_spec],
-    )
-    outs = pl.pallas_call(
-        partial(_bench_kernel, cfg, num_steps),
-        grid_spec=grid_spec,
-        out_shape=out_shape + [jax.ShapeDtypeStruct((B // LANES, LANES),
-                                                    jnp.int32)],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=_interp(interpret),
-    )(jnp.asarray([seed], jnp.int32), *_folded_inputs(p))
-    p_final = _rebuild(p, outs[:-1])
+    sds = jax.ShapeDtypeStruct
+    outs = _call(
+        partial(_bench_kernel, cfg, num_steps, block), Bp // block, block,
+        interpret,
+        in_specs=[_spec(f, block) for f in PackedState._fields],
+        out_specs=[_spec(f, block) for f in _OUT_FIELDS] + [_spec(None, block)],
+        out_shape=[sds((C.N_OBJECTS, Bp) if f in _SLOT_FIELDS else (Bp,), KDT)
+                   for f in _OUT_FIELDS] + [sds((Bp,), jnp.int32)],
+    )(_meta(seed, env_offset),
+      *[_pad(getattr(p, f).astype(KDT), Bp) for f in PackedState._fields])
+    outs = [o[..., :B] for o in outs]
+    p_final = p._replace(**{f: o.astype(jnp.int16)
+                            for f, o in zip(_OUT_FIELDS, outs)})
     state = transpose_out(unpack(cfg, p_final, ts.desired, init_rows),
                           slots.rng)
     return state, jnp.sum(outs[-1])
@@ -231,83 +283,18 @@ def fused_rollout_packed_bench(cfg: EnvConfig, slots: SlotState, seed,
 
 @partial(jax.jit, static_argnums=(0, 2),
          static_argnames=("interpret", "block"))
-def fused_action_stream(B: int, seed, num_steps: int, *,
+def fused_action_stream(batch: int, seed, num_steps: int, *, env_offset=0,
                         interpret: bool = False, block: int | None = None):
-    """The bench kernel's raw in-kernel PRNG action stream, as int32[T, B].
+    """The actions the kernel draws in-kernel, as int32[num_steps, batch].
 
-    Uses the *identical* per-block seeding (``seed + program_id``) and decode
-    (``bits % 6``) as ``_bench_kernel`` — so uniformity, seed-divergence, and
-    per-block independence of the headline benchmark's action distribution can
-    be validated on real hardware (tests_tpu/test_tpu_engine.py). The ~2^32%6
-    modulo bias is ≈1e-9 per action — far below any test's resolution.
+    Same env indexing and hash as :func:`fused_rollout_packed_bench`, so the
+    tests can pin the in-kernel stream to :func:`reference_actions`.
     """
-    block = _block_size(B, block)
-    R = block // LANES
-
-    def kernel(seed_ref, o_ref):
-        pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-
-        def body(t, carry):
-            bits = pltpu.prng_random_bits((R, LANES))
-            o_ref[t] = (bits % jnp.uint32(6)).astype(KDT)
-            return carry
-
-        jax.lax.fori_loop(0, num_steps, body, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B // block,),
-        in_specs=[],
-        out_specs=[pl.BlockSpec((num_steps, R, LANES), lambda i, *a: (0, i, 0),
-                                memory_space=pltpu.VMEM)],
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((num_steps, B // LANES, LANES), KDT)],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=_interp(interpret),
-    )(jnp.asarray([seed], jnp.int32))
-    return _unfold(out[0])
-
-
-@partial(jax.jit, static_argnums=(0, 3),
-         static_argnames=("interpret", "block"))
-def fused_rollout_packed(cfg: EnvConfig, slots: SlotState, actions,
-                         num_steps: int, *, interpret: bool = False,
-                         block: int | None = None):
-    """Step given actions int[T, B]; returns (SlotState, rewards, dones).
-
-    The whole [T, block] action slab is block-loaded into VMEM — use for
-    equivalence testing / short rollouts (T * block * 2 bytes must fit).
-    """
-    del num_steps
-    T = actions.shape[0]
-    B = slots.agent.shape[0]
-    block = _block_size(B, block)
-    ts = transpose_in(slots)
-    p = pack(cfg, ts)
-    init_rows = (ts.init_pos_r, ts.init_pos_c, ts.init_type,
-                 ts.init_agent_r, ts.init_agent_c)
-
-    in_specs, out_specs, out_shape = _specs(cfg, B, block)
-    R = block // LANES
-    tspec = lambda: pl.BlockSpec((T, R, LANES), lambda i, *a: (0, i, 0),
-                                 memory_space=pltpu.VMEM)
-    sds = jax.ShapeDtypeStruct
-    outs = pl.pallas_call(
-        partial(_actions_kernel, cfg, T),
-        grid=(B // block,),
-        in_specs=in_specs + [tspec()],
-        out_specs=out_specs + [tspec(), tspec()],
-        out_shape=out_shape + [sds((T, B // LANES, LANES), KDT),
-                               sds((T, B // LANES, LANES), KDT)],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT),
-        interpret=_interp(interpret),
-    )(*_folded_inputs(p), _fold(actions.astype(KDT)))
-    p_final = _rebuild(p, outs[:-2])
-    rewards = _unfold(outs[-2])
-    dones = _unfold(outs[-1]).astype(jnp.bool_)
-    state = transpose_out(unpack(cfg, p_final, ts.desired, init_rows),
-                          slots.rng)
-    return state, rewards, dones
+    block, Bp = _padded(batch, block)
+    out = _call(
+        partial(_stream_kernel, num_steps, block), Bp // block, block,
+        interpret, in_specs=[],
+        out_specs=_spec(None, block, lead=num_steps),
+        out_shape=jax.ShapeDtypeStruct((num_steps, Bp), jnp.int32),
+    )(_meta(seed, env_offset))
+    return out[:, :batch]

@@ -1,7 +1,7 @@
 """Packed-key slot layout: the minimum-vector-op stepping engine.
 
-The transposed scan (ops/transposed_rollout.py) is VPU-issue-bound: each step
-spends ~100 vector ops over [8, B] tiles, most of them position/status
+The transposed scan (ops/transposed_rollout.py) spends ~100 vector ops per
+step over [8, B] arrays, most of them position/status
 compares and 9-row task bookkeeping. This engine collapses that algebra:
 
 * Each slot's (status, row, col) packs into ONE int16 key::
@@ -36,15 +36,12 @@ compares and 9-row task bookkeeping. This engine collapses that algebra:
   reduction.
 
 * Everything is int16: all values fit (keys < H*W+2, codes < 16, masks 9 bits,
-  step counter <= max_steps), and halving the element width halves both the
-  scan-carry HBM traffic and the VPU register pressure.
+  step counter <= max_steps), and halving the element width halves the
+  scan-carry traffic through device memory.
 
 Per-step semantics are bit-identical to core/slots.py / the transposed scan
 (equivalence-tested in tests/test_packed_rollout.py); holding is carried as a
 scalar (it only changes on pickup/drop and at most one slot is ever held).
-
-Measured (v5e, 16k envs, 21x21): 1.77e9 env-steps/s — ~1.9x the transposed
-scan, ~30,000x the reference's single-env CPU stepping rate.
 """
 
 from __future__ import annotations
@@ -136,7 +133,10 @@ def unpack(cfg: EnvConfig, p: PackedState, desired_rows, init_rows) -> TSlotStat
     key = p.slot_key.astype(jnp.int32)
     on = key < held_key
     held = key == held_key
-    stat = jnp.where(on, ON_GRID, jnp.where(held, HELD, REMOVED))
+    # strongly typed, so a rollout's output state feeds the next call
+    # without a retrace
+    stat = jnp.where(on, ON_GRID, jnp.where(held, HELD, REMOVED)).astype(
+        jnp.int32)
     pos_r = jnp.where(on, key // W, 0)
     pos_c = jnp.where(on, key % W, 0)
     ach = p.achieved.astype(jnp.int32)
@@ -164,9 +164,9 @@ def _step_p(cfg: EnvConfig, s: PackedState, action: jax.Array, dtype=i16):
     """One batched step; ``action`` int[B]. Mirrors transposed_rollout._step_t.
 
     ``dtype`` selects the integer element type (all values fit in int16; the
-    scan engine uses int16 to halve carry HBM traffic, while the fused Pallas
-    kernel passes int32 — v5e Mosaic cannot lower packed-int16 vector
-    compares). The algebra is dtype-independent, so results are bit-identical:
+    scan engine uses int16 to halve its carry traffic, while the GPU kernel
+    passes int32, the width of a register). The algebra is
+    dtype-independent, so results are bit-identical:
     every field is bounded (keys < H*W+2, codes < 16, masks 9 bits) and the
     step counter saturates at ``max_steps``, so no value ever exceeds int16
     range at any rollout length.
@@ -192,9 +192,7 @@ def _step_p(cfg: EnvConfig, s: PackedState, action: jax.Array, dtype=i16):
     at_there = s.slot_key == new_key
     at_init_there = (s.init_key == new_key).astype(i16)
     # unrolled 8-way tree add over the slot axis: bit-identical to
-    # jnp.sum(axis=0) but made of plain elementwise adds, which Mosaic can
-    # lower for int16 (reductions over int16 are NotImplemented) — lets the
-    # fused Pallas kernel (ops/packed_fused.py) reuse this step verbatim
+    # jnp.sum(axis=0), and the same add order as _step_p_unrolled
     v = at_there.astype(i16) * s.slot_type + (at_init_there * s.init_type << 4)
     codes = ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]))
     obj_here = s.obj_here
@@ -365,6 +363,11 @@ def _step_p_unrolled(cfg: EnvConfig, s: PackedState, action: jax.Array,
     compile-time type constants for the 5 fixed-type slots, the init-code
     reduction uses per-slot constants with no pack/unpack shifts, and the
     slot-update selects run only on the slots whose class allows the update.
+
+    The slot fields may also be tuples of 8 per-slot ``[B]`` rows; the new
+    slot fields then come back as tuples too. The GPU kernel
+    (ops/packed_fused.py) steps that form, since Triton can neither slice a
+    register tensor nor stack rows into one.
     """
     i16 = dtype
     W = i16(cfg.width)
@@ -513,9 +516,10 @@ def _step_p_unrolled(cfg: EnvConfig, s: PackedState, action: jax.Array,
     step_num = jnp.minimum(s.step_num + one, i16(cfg.max_steps))
     done = (step_num >= cfg.max_steps) | (reward == cfg.max_steps)
 
+    rows = tuple if isinstance(s.slot_key, tuple) else jnp.stack
     new_s = s._replace(
-        slot_key=jnp.stack(new_keys),
-        slot_type=jnp.stack(new_typ),
+        slot_key=rows(new_keys),
+        slot_type=rows(new_typ),
         agent_r=agent_r,
         agent_c=agent_c,
         holding=new_holding,

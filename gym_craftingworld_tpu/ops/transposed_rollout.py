@@ -1,10 +1,9 @@
-"""Transposed slot layout: slots on sublanes, batch on lanes.
+"""Transposed slot layout: slot axis first, batch last (``[8, B]``).
 
 The straightforward slot layout puts the 8-entity axis last, so every
-``[B, 8]`` vector op occupies only 8 of the 128 lanes in a VPU register —
-~94% of the vector width idles. Storing the state transposed as ``[8, B]``
-(slots → sublanes, batch → lanes) fills whole ``(8, 128)`` tiles exactly, and
-slot reductions become cheap sublane reductions.
+``[B, 8]`` vector op runs along an axis of length 8. Storing the state
+transposed as ``[8, B]`` puts the long batch axis minor, and slot reductions
+become sums of 8 rows.
 
 This module provides a scan rollout over the transposed layout. Entry/exit
 transposes cost two small copies per rollout; per-step semantics are identical
@@ -126,7 +125,7 @@ def _step_t(cfg: EnvConfig, s: TSlotState, action: jax.Array):
                          eff_type)
     eff_removed = (t == C.ROCK) | (t == C.BREAD)
 
-    hit = at_there & move_ok  # [8, B] & [B] broadcasts on lanes
+    hit = at_there & move_ok  # [8, B] & [B] broadcasts over the slot axis
     slot_type = jnp.where(hit, eff_type, t)
     slot_stat = jnp.where(hit & eff_removed, REMOVED, s.slot_stat)
 

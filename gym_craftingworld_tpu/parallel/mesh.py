@@ -1,7 +1,7 @@
 """Device-mesh construction and env-batch sharding.
 
 The reference has no parallelism of any kind (single env object mutating numpy
-in place). The TPU-native scaling axis is the *env batch*: every EnvState leaf
+in place). The scaling axis is the *env batch*: every EnvState leaf
 carries the batch on axis 0, so sharding the whole pytree with
 ``NamedSharding(P('env'))`` partitions the world across chips with **zero**
 cross-chip communication in the stepping path — env stepping is embarrassingly
@@ -10,7 +10,7 @@ axis, see train/ppo.py).
 
 Multi-host: call :func:`initialize_distributed` first (``jax.distributed``),
 then meshes span all processes' devices and ``reset_sharded`` lays the batch
-out so each host touches only its local shard (ICI within hosts, DCN between).
+out so each host touches only its local shard.
 """
 
 from __future__ import annotations
@@ -120,15 +120,13 @@ def scaling_report(cfg: EnvConfig, batch_per_device: int, num_steps: int = 64,
     """env-steps/s at 1 device vs all devices, per engine.
 
     Engines: ``grid`` (core/rollout.rollout_random over EnvState),
-    ``packed_scan`` (the headline int16 packed scan via
-    parallel/sharded_engine.rollout_p_sharded), ``fused`` (the fused Pallas
-    bench kernel via fused_rollout_packed_bench_sharded — TPU only; batch
-    per device must be a multiple of ops.packed_fused.BLOCK).
+    ``packed_scan`` (the int16 packed scan via
+    parallel/sharded_engine.rollout_p_sharded), ``fused`` (the rollout kernel
+    via fused_rollout_packed_bench_sharded; compiled, so GPU only).
 
     Returns {engine: {"n1": rate, "nN": rate, "devices": N, "efficiency": e}}
     where e = rate(N) / (N * rate(1)). Stepping is communication-free, so
-    e ≈ 1 up to compiler/runtime overheads — this report is the artifact
-    BASELINE.md's scaling row points at (tools/scaling_artifact.py).
+    e ≈ 1 up to compiler/runtime overheads.
     """
     import jax.numpy as jnp
 

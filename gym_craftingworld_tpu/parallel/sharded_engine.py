@@ -1,23 +1,23 @@
-"""Mesh sharding for the throughput engines (packed scan + fused kernel).
+"""Mesh sharding for the throughput engines (packed scan + rollout kernel).
 
 The slot/packed layouts put the env batch on the *last* axis ([8, B] slot
-arrays, [B] scalars) so that batch fills VPU lanes — which means the sharding
-story differs from the grid path's leading-axis ``P('env')``:
+arrays, [B] scalars), so the sharding story differs from the grid path's
+leading-axis ``P('env')``:
 
 * ``SlotState`` leaves are batch-leading → ``P('env')`` (same as EnvState);
   inside ``rollout_p`` the transpose to [8, B] propagates to ``P(None,'env')``
   automatically, and stepping remains communication-free (bit-exactness under
   sharding is pinned by tests/test_sharded_engine.py).
-* The fused Pallas kernel is wrapped in ``shard_map``: each device runs the
-  kernel over its local batch shard, with per-shard seeds laid out so that
-  global block ``j`` draws the *same* PRNG stream as the single-device kernel
-  (shard ``i`` covers blocks ``i*nlb .. (i+1)*nlb-1`` and seeds them
-  ``seed + i*nlb + k`` — exactly the unsharded ``seed + program_id`` layout).
-  The only collective is one scalar ``psum`` for the reward checksum.
+* The rollout kernel (ops/packed_fused.py) is wrapped in ``shard_map``: each
+  device runs it over its local batch shard with ``env_offset`` set to the
+  shard's first global env index. The kernel's action stream is a hash of
+  the global env index, so every env draws the same actions as on one
+  device. The only collective is one scalar ``psum`` for the reward
+  checksum.
 
-Scaling is embarrassingly parallel: no cross-chip bytes move during stepping,
-so env-steps/s is linear in devices by construction (the reference has no
-parallelism at all — craftingworld_ray.py steps one env per process).
+Scaling is embarrassingly parallel: no cross-device bytes move during
+stepping, so env-steps/s is linear in devices by construction (the reference
+has no parallelism at all — craftingworld_ray.py steps one env per process).
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from gym_craftingworld_tpu.config import EnvConfig
 from gym_craftingworld_tpu.core.slots import SlotState
 from gym_craftingworld_tpu.ops import packed_fused as pf
-from gym_craftingworld_tpu.ops.packed_rollout import rollout_p
+from gym_craftingworld_tpu.ops.packed_fused import _SLOT_FIELDS
+from gym_craftingworld_tpu.ops.packed_rollout import PackedState, rollout_p
 from gym_craftingworld_tpu.parallel.mesh import ENV_AXIS, env_sharding
 
 
@@ -47,9 +48,6 @@ def packed_lane_sharding(mesh: Mesh):
     Slot arrays are [8, B] → ``P(None, 'env')``; per-env scalars [B] →
     ``P('env')``.
     """
-    from gym_craftingworld_tpu.ops.packed_fused import _SLOT_FIELDS
-    from gym_craftingworld_tpu.ops.packed_rollout import PackedState
-
     return PackedState(**{
         f: NamedSharding(
             mesh, P(None, ENV_AXIS) if f in _SLOT_FIELDS else P(ENV_AXIS)
@@ -69,22 +67,12 @@ def fast_train_step_sharded(cfg: EnvConfig, fppo, mesh: Mesh):
     Same rationale as ``parallel.mesh.ppo_train_step_sharded``: the env
     batch's lane-axis sharding must survive the step regardless of what the
     partitioner would choose. Returns ``step(ts, env, key)``.
-
-    The fused Pallas reset pool AND the fused update kernel are forced off
-    on a >1-device mesh: both raw pallas_calls are not shard_map-wrapped
-    inside train_step_fast, so the partitioner would either reject them or
-    silently replicate their operands per device. The jax.random pool and
-    the autodiff update partition cleanly; the shard_map-wrapped per-device
-    form of the update kernel (grads + psum) is exercised separately in the
-    multichip dryrun (__graft_entry__.py).
     """
     from gym_craftingworld_tpu.train.fast_ppo import train_step_fast
 
-    fused_pool = None if mesh.size == 1 else False
     rep = NamedSharding(mesh, P())
     return jax.jit(
-        partial(train_step_fast, cfg, fppo, fused_pool=fused_pool,
-                fused_update=fused_pool),
+        partial(train_step_fast, cfg, fppo),
         donate_argnums=(0,),
         out_shardings=(rep, packed_lane_sharding(mesh), rep, rep),
     )
@@ -118,45 +106,23 @@ def rollout_p_sharded(cfg: EnvConfig, slots: SlotState, actions,
 
 @partial(jax.jit, static_argnums=(0, 3),
          static_argnames=("mesh", "interpret", "block"))
-def fused_rollout_packed_sharded(cfg: EnvConfig, slots: SlotState, actions,
-                                 num_steps: int, *, mesh: Mesh,
-                                 interpret: bool = False,
-                                 block: int | None = None):
-    """shard_map the fused actions-kernel: each device runs its local blocks."""
-
-    def local(slots_l, actions_l):
-        return pf.fused_rollout_packed(cfg, slots_l, actions_l, num_steps,
-                                       interpret=interpret, block=block)
-
-    return jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(ENV_AXIS), P(None, ENV_AXIS)),
-        out_specs=(P(ENV_AXIS), P(None, ENV_AXIS), P(None, ENV_AXIS)),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
-    )(slots, actions)
-
-
-@partial(jax.jit, static_argnums=(0, 3),
-         static_argnames=("mesh", "interpret", "block"))
 def fused_rollout_packed_bench_sharded(cfg: EnvConfig, slots: SlotState, seed,
                                        num_steps: int, *, mesh: Mesh,
                                        interpret: bool = False,
                                        block: int | None = None):
-    """shard_map the fused bench kernel (in-kernel PRNG actions).
+    """shard_map the rollout kernel: each device steps its local envs.
 
-    Per-shard seeds reproduce the single-device block-seed layout, so the
-    global action streams — and therefore the reward checksum — are identical
-    to ``fused_rollout_packed_bench`` on one device with the same global B.
+    Each shard passes its first global env index as ``env_offset``, so the
+    action streams — and therefore the final state and the reward checksum —
+    are identical to ``fused_rollout_packed_bench`` on one device with the
+    same global B.
     """
-    B = slots.agent.shape[0]
-    local_B = B // mesh.size
-    nlb = local_B // pf._block_size(local_B, block)  # blocks per shard
+    local_B = slots.agent.shape[0] // mesh.size
 
     def local(slots_l, seed_arr):
-        shard = jax.lax.axis_index(ENV_AXIS)
+        offset = jax.lax.axis_index(ENV_AXIS) * local_B
         st, acc = pf.fused_rollout_packed_bench(
-            cfg, slots_l, seed_arr[0] + shard * nlb, num_steps,
+            cfg, slots_l, seed_arr[0], num_steps, env_offset=offset,
             interpret=interpret, block=block,
         )
         return st, jax.lax.psum(acc, ENV_AXIS)

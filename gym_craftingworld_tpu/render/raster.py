@@ -37,14 +37,14 @@ def _upsample_mats(H: int, W: int):
     """Constant 0/1 replication matrices for the separable 4x upsample.
 
     The naive upsample (``repeat``/broadcast+reshape) interleaves a middle
-    axis — a relayout copy that ran at ~17 GB/s on TPU. Expressed instead as
-    two tiny matmuls over constant 0/1 matrices it rides the MXU at near
-    HBM speed (~22x faster at 16k envs, bit-exact: every output pixel is a
-    single 0/1-weighted term, and palette values <=255 are exact in bf16).
+    axis, a relayout copy. Here it is two tiny matmuls over constant 0/1
+    matrices instead, bit-exact: every output pixel is a single 0/1-weighted
+    term, and palette values <=255 are exact in bf16 (chip_smoke.py phase 1
+    checks the GPU's renders against the CPU's, pixel for pixel).
 
       Rc[3W, 12W]  column upsample in the merged minor layout, where output
-                   column q = 12*cell + 3*px + ch (W and RGB fused so vector
-                   ops fill the 128-lane registers instead of using 3 lanes)
+                   column q = 12*cell + 3*px + ch (W and RGB fused into one
+                   minor axis)
       Rr[4H, H]    row upsample
     """
     Rc = np.zeros((3 * W, 12 * W), np.float32)
@@ -64,8 +64,8 @@ def render_ray(objects, agent, holding):
     """Batched Ray-style pixels: uint8[B, 4H, 4W, 3].
 
     Fully branch-free and gather-free: per-cell colours by select-sum over
-    the 9 palette entries (TPU gathers serialize; compares/selects vectorize),
-    4x upsample as two MXU matmuls (see ``_upsample_mats``), then masked
+    the 9 palette entries, 4x upsample as two matmuls (see
+    ``_upsample_mats``), then masked
     agent/holding overlays in the merged [B, 4H, 12W] layout — no per-env
     scatters, no relayout copies.
     """
@@ -116,7 +116,7 @@ _PALETTE_NP = np.asarray(C.COLORS_N, np.uint8)  # [9, 3]; row 0 = black/empty
 def render_edit(img, objects, agent, holding, cells):
     """Repaint only ``cells`` of a Ray-style image, in place (host numpy).
 
-    The TPU-correct design re-renders the whole batch on device
+    The batched design re-renders the whole batch on device
     (:func:`render_ray`); this is the single-env *interactive* fast path
     mirroring the reference's incremental renderer
     (craftingworld_ray.py:522-557), which touches at most two 4x4-px tiles

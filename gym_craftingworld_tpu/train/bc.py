@@ -10,7 +10,7 @@ that loop framework-natively:
     (goal-conditioned feature, expert action) pairs;
   * :func:`bc_train` clones the flagship actor-critic policy
     (models/actor_critic.py) from them with a jitted cross-entropy trainer —
-    the compute path is the same bf16 MXU-tiled MLP the PPO learner uses, so
+    the compute path is the same bf16 MLP the PPO learner uses, so
     a BC-pretrained policy drops straight into train/ppo.py for fine-tuning;
   * :func:`evaluate_bc` rolls the cloned policy greedily and reports success.
 

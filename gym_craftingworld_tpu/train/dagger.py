@@ -6,7 +6,7 @@ setting with a *learned* policy:
 
   * the dataset lives on device as SnapDataset integer columns
     (train/demos.py) and policy features are rebuilt per minibatch
-    (models/grid_policy.py), so millions of transitions train at MXU speed
+    (models/grid_policy.py), so millions of transitions train at matmul speed
     with whole epochs running as one fused scan per dispatch;
   * evaluation is a fully on-device batched greedy rollout over the real
     reset/step core — the measurement train/evaluate.py defines, at

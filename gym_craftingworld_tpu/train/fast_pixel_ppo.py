@@ -1,6 +1,6 @@
 """Fast PPO for policies that LOOK at the world: CNN over the one-hot grid.
 
-VERDICT r2 item 3: the pixel/grid model families trained only through the
+The pixel/grid model families trained only through the
 parity-grade trainer (~1e5 env-steps/s); this trainer gives an agent that
 consumes the reference's spatial observation a throughput path. Same loop
 shape as train/fast_ppo.py (packed engine, pool auto-reset, GAE, clipped
@@ -18,7 +18,7 @@ surrogate, block-shuffled minibatches), with two changes:
 
 * **Policy = conv stem.** Strided 3x3 convs in bf16 NHWC over the grid, goal
   and holding bits fused at the dense layer. The default stem is sized so a
-  16k-env update stays MXU-bound at >=1e6 env-steps/s full loop.
+  16k-env update stays matmul-bound.
 
 The observation the policy consumes equals the reference's
 `observation_vector['observation']` one-hot (+ goal bits the reference
@@ -120,7 +120,7 @@ def render_grid_obs(cfg: EnvConfig, s: PackedState):
     # Per-cell object CODE by fused compare-accumulate (one object per cell,
     # core/slots.py invariant), then one-hot channels. The previous
     # formulation materialized an [8, B, HW] bf16 on-cell tensor plus an
-    # einsum — 8x the bytes of the output and a size-8 MXU contraction;
+    # einsum — 8x the bytes of the output and a size-8 contraction;
     # this chain is 8 fused elementwise passes over [B, HW] and one
     # compare-expand, bit-identical results.
     typ = s.slot_type.astype(jnp.int32)
@@ -196,7 +196,7 @@ def init_pixel_params(key, cfg: EnvConfig, ppo: PixelPPOConfig) -> ConvParams:
 
 
 def _conv(x, k, stride):
-    # pure-bf16 conv (XLA accumulates on the MXU in f32 internally); a mixed
+    # pure-bf16 conv (accumulated in f32 internally); a mixed
     # bf16-input/f32-output conv has no valid vjp in lax
     return jax.lax.conv_general_dilated(
         x.astype(bf16), k.astype(bf16), (stride, stride), "SAME",

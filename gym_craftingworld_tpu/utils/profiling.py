@@ -1,7 +1,7 @@
 """Tracing / profiling helpers.
 
 The reference has no profiling at all (SURVEY §5); here every hot region can
-be annotated for the TPU profiler and throughput is tracked per host.
+be annotated for the JAX profiler and throughput is tracked per host.
 """
 
 from __future__ import annotations

@@ -163,8 +163,8 @@ class TestRegistry:
         gymnasium = pytest.importorskip("gymnasium")
         from gym_craftingworld_tpu.api import register_gymnasium
 
-        assert register_gymnasium(prefix="tpu/")
-        env = gymnasium.make("tpu/craftingworldflat-v3", seed=0)
+        assert register_gymnasium(prefix="cw/")
+        env = gymnasium.make("cw/craftingworldflat-v3", seed=0)
         obs, info = env.reset()
         assert obs.shape == (32, 32, 3)
         obs, reward, terminated, truncated, info = env.step(0)

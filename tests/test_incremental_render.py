@@ -1,7 +1,7 @@
 """Incremental single-env render fast path (reference render_edit).
 
 The reference maintains the observation image incrementally, repainting only
-the cells a step changed (craftingworld_ray.py:522-557). The batched TPU
+the cells a step changed (craftingworld_ray.py:522-557). The batched device
 design full-renders on device; ``incremental_render=True`` restores the
 reference's fast path for interactive single-env use. These tests pin the
 fast path byte-exact against the full render.

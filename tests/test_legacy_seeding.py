@@ -5,8 +5,7 @@ The reference's ``seed()`` routes through ``gym.utils.seeding.np_random``
 seed with SHA-512 before constructing the RandomState; the bundled shim
 implements that scheme as ``scheme="legacy_hash"`` (default remains
 ``direct``). These tests pin the hash algebra to golden values and re-prove
-public-API episode parity with BOTH sides running the hashed scheme — closing
-the VERDICT r3 seeding-parity scope item.
+public-API episode parity with BOTH sides running the hashed scheme.
 """
 
 import numpy as np

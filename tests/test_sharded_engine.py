@@ -1,10 +1,7 @@
 """Headline engines under mesh sharding (8 virtual CPU devices).
 
-Pins VERDICT r1 item 3: the layouts the benchmark advertises ([8, B] slot
-arrays, batch on the last axis) must be proven multi-chip correct, not just
-the grid PPO path."""
-
-import importlib
+The layouts the benchmark advertises ([8, B] slot arrays, batch on the last
+axis) must be proven multi-device correct, not just the grid PPO path."""
 
 import jax
 import jax.numpy as jnp
@@ -13,11 +10,10 @@ from jax.sharding import PartitionSpec as P
 
 from gym_craftingworld_tpu import ray_config, reset_from_seed
 from gym_craftingworld_tpu.core import slots as sm
+from gym_craftingworld_tpu.ops import packed_fused as pf
 from gym_craftingworld_tpu.ops import packed_rollout as pr
 from gym_craftingworld_tpu.parallel import sharded_engine as se
 from gym_craftingworld_tpu.parallel.mesh import make_env_mesh
-
-pf = importlib.import_module("gym_craftingworld_tpu.ops.packed_fused")
 
 
 def _slots(cfg, seed, B):
@@ -51,41 +47,41 @@ def test_rollout_p_sharded_bit_exact():
     assert len(sl_out.agent.sharding.device_set) == 8
 
 
-# fused kernels run via the interpret=/block= parameters (TPU interpreter)
-_KW = dict(interpret=True, block=128)
+# the rollout kernel runs in the Pallas interpreter on CPU
+_KW = dict(interpret=True, block=64)
 
 
 def test_fused_actions_sharded_matches_unsharded():
+    """The sharded kernel steps each env with the reference stream of its
+    *global* index: it equals the sharded scan fed ``reference_actions``."""
     cfg = ray_config()
-    B, T = 1024, 48  # 8 shards x 128 envs = one kernel block per shard
+    B, T = 1024, 48  # 8 shards x 128 envs = two kernel blocks per shard
     mesh = make_env_mesh(8)
-    actions = jax.random.randint(jax.random.PRNGKey(5), (T, B), 0, 6, jnp.int32)
+    actions = pf.reference_actions(5, B, T)
 
-    sl_ref, rew_ref, done_ref = pf.fused_rollout_packed(
-        cfg, _slots(cfg, 1, B), actions, T, **_KW)
-    sl_sh, rew_sh, done_sh = se.fused_rollout_packed_sharded(
-        cfg, se.shard_slots(_slots(cfg, 1, B), mesh), actions, T, mesh=mesh,
-        **_KW)
+    sl_ref, out_ref = se.rollout_p_sharded(
+        cfg, se.shard_slots(_slots(cfg, 1, B), mesh), actions, T, mesh)
+    sl_sh, acc_sh = se.fused_rollout_packed_bench_sharded(
+        cfg, se.shard_slots(_slots(cfg, 1, B), mesh), 5, T, mesh=mesh, **_KW)
 
-    np.testing.assert_array_equal(np.asarray(rew_sh), np.asarray(rew_ref))
-    np.testing.assert_array_equal(np.asarray(done_sh), np.asarray(done_ref))
+    assert int(acc_sh) == int(np.asarray(out_ref.reward).sum())
     for f in ["slot_type", "slot_stat", "agent", "achieved", "step_num"]:
         np.testing.assert_array_equal(
             np.asarray(getattr(sl_sh, f)), np.asarray(getattr(sl_ref, f)),
             err_msg=f,
         )
+    assert len(sl_sh.agent.sharding.device_set) == 8
 
 
 def test_fused_bench_sharded_matches_unsharded():
-    """Same seed ⇒ same checksum and final state: the per-shard seed layout
-    reproduces the single-device block-seed assignment exactly (one block per
-    shard here, so shard i draws stream seed+i just like program_id i)."""
+    """Same seed ⇒ same checksum and final state on 8 shards as on one
+    device: each shard's env offset reproduces the global env indexing."""
     cfg = ray_config()
     B, T = 1024, 32
     mesh = make_env_mesh(8)
 
-    st_ref, acc_ref = pf.fused_rollout_packed_bench(cfg, _slots(cfg, 2, B), 9, T,
-                                              **_KW)
+    st_ref, acc_ref = pf.fused_rollout_packed_bench(cfg, _slots(cfg, 2, B), 9,
+                                                    T, **_KW)
     st_sh, acc_sh = se.fused_rollout_packed_bench_sharded(
         cfg, se.shard_slots(_slots(cfg, 2, B), mesh), 9, T, mesh=mesh, **_KW)
 
@@ -119,12 +115,9 @@ def test_fast_ppo_train_step_sharded():
     assert len(env.slot_key.sharding.device_set) == 8
 
 
-def test_fast_step_sharded_forces_partitioner_safe_pool(monkeypatch):
-    """fast_train_step_sharded must gate the fused Pallas reset OFF on a
-    >1-device mesh: the raw pallas_call is not shard_map-wrapped, so the
-    partitioner would reject it or silently replicate the 2*B pool per
-    device. The sharded wrapper passes fused_pool=False down to _fresh_pool
-    (which the trace records here)."""
+def test_fast_train_step_sharded_pins_out_shardings():
+    """The sharded wrapper pins its outputs: the env batch keeps its
+    lane-axis sharding and params come back replicated."""
     from gym_craftingworld_tpu.train import fast_ppo as fp
 
     cfg = ray_config()
@@ -134,17 +127,9 @@ def test_fast_step_sharded_forces_partitioner_safe_pool(monkeypatch):
     env = se.shard_packed(
         fp.fresh_packed_batch(cfg, jax.random.PRNGKey(0), 1024), mesh)
     ts = fp.init_fast_train_state(jax.random.PRNGKey(1), cfg, fppo)
-
-    seen = []
-    orig = fp._fresh_pool
-
-    def spy(cfg_, key_, n_, fused=None):
-        seen.append(fused)
-        return orig(cfg_, key_, n_, fused=fused)
-
-    monkeypatch.setattr(fp, "_fresh_pool", spy)
     step = se.fast_train_step_sharded(cfg, fppo, mesh)
     ts, env, _, metrics = step(ts, env, jax.random.PRNGKey(2))
-    assert seen == [False], seen
     assert np.isfinite(float(metrics["loss"]))
     assert env.slot_key.sharding.spec == P(None, "env")
+    assert env.agent_r.sharding.spec == P("env")
+    assert ts.params.w1.sharding.is_fully_replicated

@@ -1,7 +1,7 @@
-"""Fine-grained collect-phase breakdown for fast PPO (VERDICT r4 item 2).
+"""Fine-grained collect-phase breakdown for fast PPO.
 
-Times scan variants with pieces knocked out, all delta-timed (K vs K/2
-outer iterations) so the relay constant cancels:
+Times scan variants with pieces knocked out, each as its own K-iteration
+jitted scan:
 
   full        — the production _collect (policy + sample + step + reset + store)
   nostore     — same but per-step outputs reduced to scalars (no [T,F,B] HBM)
@@ -25,10 +25,11 @@ K = int(sys.argv[2]) if len(sys.argv) > 2 else 12
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gym_craftingworld_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compilation_cache,
+)
+
+enable_compilation_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -143,20 +144,17 @@ def steponly(params, env, k):
     return env, accs.sum().astype(jnp.float32)
 
 
-def delta_time(label, fn, iters=5):
+def time_variant(label, fn, iters=5):
+    """Median warm wall time of K rollouts in one dispatch, per rollout."""
     run = outer(fn)
-
-    def med(n):
-        float(run(n, ts.params, env0, key))
-        vals = []
-        for _ in range(iters):
-            t0 = time.time()
-            float(run(n, ts.params, env0, key))
-            vals.append(time.time() - t0)
-        vals.sort()
-        return vals[len(vals) // 2]
-
-    ms = 1e3 * (med(K) - med(K // 2)) / (K - K // 2)
+    float(run(K, ts.params, env0, key))  # compile + warm
+    vals = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        float(run(K, ts.params, env0, key))
+        vals.append(time.perf_counter() - t0)
+    vals.sort()
+    ms = 1e3 * vals[len(vals) // 2] / K
     rate = B * T / ms * 1e3
     print(f"{label:>11}: {ms:7.2f} ms/rollout  ({rate:.3e} env-steps/s)",
           flush=True)
@@ -173,4 +171,4 @@ if __name__ == "__main__":
         ("policyonly", policyonly),
         ("steponly", steponly),
     ]:
-        delta_time(label, fn)
+        time_variant(label, fn)

@@ -24,7 +24,7 @@ Model: models/cpv.CPVGridPolicy — conv torso over world planes, goal
 conditioning ONLY through the residual plan vector (desired - achieved) @ E,
 the Plan-Arithmetic construction (reference README.md:8).
 
-Run phases (TPU process; expert labeling is host-side):
+Run phases (device process; expert labeling is host-side):
     python tools/cpv_canonical.py            # full pipeline → docs/cpv_matrix.json
     python tools/cpv_canonical.py --smoke    # tiny CPU-friendly end-to-end check
 """
@@ -45,10 +45,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gym_craftingworld_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compilation_cache,
+)
+
+enable_compilation_cache()
 
 import jax.numpy as jnp  # noqa: E402
 

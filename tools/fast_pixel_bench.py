@@ -1,11 +1,8 @@
 """Measure fast pixel-PPO (grid-observation CNN) full-loop throughput.
 
-Delta-timed N vs N/2 updates via train_many_pixel (CLAUDE.md timing rules).
+Times N-update dispatches of train_many_pixel, warm, median of 5.
 
   python tools/fast_pixel_bench.py [ENVS] [N_UPDATES] [preset|default]
-
-Absolute timing over N-update dispatches (best of 3), like
-tools/fast_ppo_bench.py.
 """
 import os
 import sys
@@ -18,10 +15,11 @@ N = int(sys.argv[2]) if len(sys.argv) > 2 else 8
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gym_craftingworld_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compilation_cache,
+)
+
+enable_compilation_cache()
 
 from gym_craftingworld_tpu import ray_config  # noqa: E402
 from gym_craftingworld_tpu.train import fast_pixel_ppo as fpx  # noqa: E402
@@ -42,21 +40,17 @@ def run(ts, env, key, n):
     return time.time() - t0, ts, env, key
 
 
-_, ts, env, key = run(ts, env, key, N)
-_, ts, env, key = run(ts, env, key, N // 2)
+_, ts, env, key = run(ts, env, key, N)  # compile + warm
 
 steps_per_update = B * ppo.rollout_steps
-full, half = [], []
+times = []
 for i in range(5):
     t, ts, env, key = run(ts, env, key, N)
-    full.append(t)
-    t, ts, env, key = run(ts, env, key, N // 2)
-    half.append(t)
-full.sort(); half.sort()
-dt = full[len(full) // 2] - half[len(half) // 2]
-rate = steps_per_update * (N - N // 2) / dt
+    times.append(t)
+times.sort()
+dt = times[len(times) // 2]
+rate = steps_per_update * N / dt
 print(f"envs={B} rollout_steps={ppo.rollout_steps} "
       f"conv=({ppo.conv1},{ppo.conv2}) hidden={ppo.hidden}")
-print(f"median full={full[len(full)//2]:.3f}s half={half[len(half)//2]:.3f}s "
-      f"delta={dt:.3f}s -> ms/update={1000*dt/(N - N//2):.1f}")
+print(f"median of 5: {dt:.3f}s for {N} updates -> ms/update={1000*dt/N:.1f}")
 print(f"pixel full-loop env-steps/s = {rate:.3e}")

@@ -1,4 +1,4 @@
-"""Pixel-policy PPO at canonical scale: 21x21 grid, 16k envs (VERDICT r3 #9).
+"""Pixel-policy PPO at canonical scale: 21x21 grid, 16k envs.
 
 Trains train/fast_pixel_ppo's conv policy — which consumes the re-rendered
 (B, 21, 21, 12) one-hot observation every step — on the canonical grid at the
@@ -30,10 +30,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gym_craftingworld_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compilation_cache,
+)
+
+enable_compilation_cache()
 
 from gym_craftingworld_tpu import ray_config  # noqa: E402
 from gym_craftingworld_tpu.train import fast_pixel_ppo as fpx  # noqa: E402

@@ -1,6 +1,6 @@
 """RL fine-tune of the canonical policy under the exact-match reward.
 
-VERDICT r4 item 4: the 97.2% canonical policy plateaued under BC + targeted
+The 97.2% canonical policy plateaued under BC + targeted
 DAgger (every recipe re-run confirmed ~97.2%); attack the plateau with a
 DIFFERENT optimizer — PPO against the true exact-match reward, starting from
 the trained GridPolicy. The failure mass sits on the un-latch skills
@@ -39,10 +39,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gym_craftingworld_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compilation_cache,
+)
+
+enable_compilation_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402

@@ -1,6 +1,6 @@
 """Distill the canonical grid policy into an IMAGES-ONLY pixel policy.
 
-VERDICT r4 item 3: pixels are the reference's primary observation mode
+Pixels are the reference's primary observation mode
 (craftingworld_ray.py:84-92), so the framework should demonstrate a
 pixel-input policy actually solving the canonical 21x21 stacked setting.
 This tool BC-distills the 97.2% GridPolicy teacher
@@ -40,10 +40,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gym_craftingworld_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compilation_cache,
+)
+
+enable_compilation_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402

@@ -35,12 +35,11 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
+from gym_craftingworld_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compilation_cache,
 )
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+enable_compilation_cache()
 
 from flax import serialization  # noqa: E402
 
